@@ -1,8 +1,8 @@
-"""soap3dp-builder: FASTA -> TPU index.
+"""soap3dp-builder: FASTA -> device index.
 
 One step replaces the reference's two-stage build (soap3-dp-builder ->
 2BWT index files, then BGS-Build -> GPU occ tables; README.md section
-2.1): the TPU layout is emitted directly. Index lands in
+2.1): the device layout is emitted directly. Index lands in
 <fasta>.index.t3i/ so aligner invocations take "<fasta>.index" exactly
 like the reference.
 """
@@ -17,7 +17,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="soap3dp-builder",
-        description="Build the TPU 2BWT/FM index from a FASTA file")
+        description="Build the 2BWT/FM index from a FASTA file")
     ap.add_argument("fasta", help="reference FASTA (plain or .gz)")
     ap.add_argument("--sa-rate", type=int, default=8,
                     help="SA sampling rate (power of 2; the reference's "

@@ -37,9 +37,9 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--devices", type=int, default=1, dest="devices",
                     help="number of accelerator chips to use (0 = all). "
                          "The index is replicated per chip and read batches "
-                         "are sharded over the device mesh — the TPU analog "
-                         "of the reference's one-process-per-GPU ShareIndex "
-                         "recipe (README section 3)")
+                         "are sharded over the device mesh — the one-process "
+                         "analog of the reference's one-process-per-GPU "
+                         "ShareIndex recipe (README section 3)")
     ap.add_argument("--hosts", type=int, default=None, dest="hosts",
                     help="multi-host mode: total number of aligner "
                          "processes (jax.distributed). Each process takes "

@@ -12,6 +12,10 @@ from __future__ import annotations
 import sys
 import time
 
+# the summary of the last run_single/run_pair in this process (read by
+# callers that drive main() in-process, such as chip_smoke.py)
+last_summary = None
+
 
 def _init_hosts(args) -> tuple[int, int]:
     """Multi-host mode: initialize jax.distributed from flags/env.
@@ -379,6 +383,8 @@ def run_multi(cmd: str, args) -> int:
 def _summary(opts, total) -> None:
     from soap3dp_tpu.utils import timers
 
+    global last_summary
+    last_summary = total
     timers.report()
     print(f"[soap3dp] done: {total}", file=sys.stderr)
     flagged = getattr(total, "still_flagged", 0)

@@ -14,8 +14,8 @@ main-thread-only), the phase work runs on ONE worker thread, and the
 main loop keeps dispatching. Requires a thread-safe writer
 (io.aio.AsyncWriter serializes producers with a lock; its single
 consumer thread owns the underlying file writer). JAX dispatch is
-thread-safe; the two threads' device work interleaves on the single
-TPU stream, which is exactly the point — the flush's D2H waits no
+thread-safe; the two threads' device work interleaves on the
+device, which is exactly the point — the flush's D2H waits no
 longer serialize the pipeline.
 
 Memory stays bounded: at most one flush runs while one more waits;

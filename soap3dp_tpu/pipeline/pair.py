@@ -631,7 +631,7 @@ def _phase1_range(didx, opts: AlignOptions, k: int) -> tuple[int, int] | None:
 def dispatch_pair_search(didx, b1, b2, opts: AlignOptions):
     """Async-dispatch the combined both-ends search for a pair batch.
 
-    The TPU analog of the reference's double-buffered batch loop
+    The analog of the reference's double-buffered batch loop
     (alignment.cu:554-561): call this for batch i+1 before doing batch
     i's host work, then hand the pending object to align_pair_batch.
     Under the phased scheme this is the phase-1 (segments {0,1}) search.

@@ -11,7 +11,7 @@ Conventions (shared by index builder, read loader and all kernels):
   bits [2*j, 2*j+1] (LSB-first). The reference packs 2-bit DNA too
   (2bwt-lib HSP packed genome), but uses an MSB-first convention;
   LSB-first is chosen here because it turns base extraction into
-  `(word >> (2*j)) & 3`, which vectorizes cleanly on the TPU VPU.
+  `(word >> (2*j)) & 3`, which vectorizes cleanly.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Layout-safe large-array scans (cumsum / cummax / bounded nonzero).
 
-XLA lowers big 1-D cumulative ops on TPU through a radix decomposition
-whose intermediates carry a trailing dimension of 1; the (8, 128) tile
-then pads that dimension 128x, so a 2^27-element cumsum materializes a
-multi-GB (even 64 GB) buffer and the compile aborts — observed on the
-repeat-genome human-scale run, where the candidate-compaction budget K
-legitimately reaches 10^8 (VERDICT r3 item 2 fallout; satellite reads
-flag by the thousands and round-3 re-runs them at occ_cap_round3).
+Written for the system's first accelerator target, whose XLA lowering
+of big 1-D cumulative ops padded a trailing dimension of 1 to its
+(8, 128) tile, so a 2^27-element cumsum materialized a multi-GB buffer
+and the compile aborted — on the repeat-genome human-scale run, where
+the candidate-compaction budget K legitimately reaches 10^8. Whether
+plain jnp.cumsum / jnp.nonzero are as good on the GPU is not measured
+yet (ROADMAP §3 item 4); these helpers are plain JAX and run anywhere.
 
 These helpers reshape to a (rows, 1024) matrix, scan the minor axis
 (wide trailing dim -> sane tiling at any size), then recursively scan

@@ -1,8 +1,8 @@
 """Static-shape bucketing utilities.
 
 Everything dispatched to the accelerator must have shapes drawn from a
-small, fixed set, or each batch pays a fresh XLA compile (disastrous
-when compilation is remote). Dynamic sizes (round-2 read subsets, DP
+small, fixed set, or each batch pays a fresh XLA compile (seconds
+each). Dynamic sizes (round-2 read subsets, DP
 candidate counts, window lengths) are padded up to the next bucket; the
 wasted lanes are masked out.
 """

@@ -70,7 +70,7 @@ def test_repeat_genome_accuracy():
         still_flagged -> host re-align exercised at realistic rates).
     Measured baseline (4 Mbp, 800 pairs, storm-gated escalation):
     recall 0.818, unaligned 0.0, mapq30 wrong 0.0, still_flagged 3.
-    Full-scale artifact (3.1 Gbp cached index, 50k pairs, real TPU):
+    Full-scale artifact (3.1 Gbp cached index, 50k pairs):
     recall 0.994, unaligned 0.37%, mapq30 wrong 0.034%
     (ACCURACY_hg3100.json, round 5)."""
     import sys

@@ -125,42 +125,6 @@ def test_extract_genome_and_mismatches(small_device_index, oracle, rng):
     assert np.array_equal(nm, k)
 
 
-def test_compressed_upload_equals_direct(small_index):
-    """SOAP3DP_DEVICE_REBUILD=1 reconstructs occ/mark_rank/lut on
-    device from their compact sources (H2D bytes shrink ~2x at scale);
-    the HBM tables must be byte-identical to a direct upload."""
-    import os
-
-    os.environ["SOAP3DP_DEVICE_REBUILD"] = "1"
-    try:
-        compressed = fmindex.device_index(small_index)
-    finally:
-        del os.environ["SOAP3DP_DEVICE_REBUILD"]
-    direct = fmindex.device_index(small_index)
-    for name in ("occ", "bwt", "mark_rank", "mark_words", "sa_samples",
-                 "counts", "pac", "lut_lo", "lut_hi"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(compressed, name)),
-            np.asarray(getattr(direct, name)), err_msg=name)
-
-
-def test_compressed_upload_equals_direct_resampled(small_index):
-    """The reconstruction also holds after the OOM ladder resamples the
-    SA (mark bitvector changes; rank directory must track it)."""
-    import os
-
-    from soap3dp_tpu.index.builder import resample_sa
-
-    idx16 = resample_sa(small_index, 16)
-    os.environ["SOAP3DP_DEVICE_REBUILD"] = "1"
-    try:
-        compressed = fmindex.device_index(idx16)
-    finally:
-        del os.environ["SOAP3DP_DEVICE_REBUILD"]
-    np.testing.assert_array_equal(np.asarray(compressed.mark_rank),
-                                  np.asarray(idx16.mark_rank))
-
-
 def test_layout_safe_scans_match_native():
     """cumsum_1d/cummax_1d/nonzero_prefix (utils/scans.py) must agree
     with the native ops at sizes spanning the reshape boundaries —

@@ -211,7 +211,7 @@ def main() -> int:
     excluded = None
     if hg and abs(mbp - 3100) < 1:
         # the cached human-scale repeat index (built by
-        # tools/build_bench_indexes.py); runs on the TPU
+        # tools/build_bench_indexes.py); runs on the GPU
         import bench
         got = bench.get_hg_index()
         assert got is not None, "build the 3.1Gbp hg index first"

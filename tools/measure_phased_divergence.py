@@ -9,7 +9,7 @@ undercount and MAPQ can read high for phase-1-resolved pairs
 (VERDICT r3 item 5): align the same pairs with phased_search on/off
 and count records differing in each SAM field.
 
-Usage (TPU; needs the cached 250Mbp bench index where phasing engages —
+Usage (on the GPU; needs the cached 250Mbp bench index where phasing engages —
 LUT-only configs auto-disable it):
 
     python tools/measure_phased_divergence.py [n_pairs=100000]

@@ -2,7 +2,7 @@
 
 The reference seeds deep DP with a 1-mismatch GPU kernel
 (single_1_mismatch_alignment2, alignment.cu:1839). The rebuild uses
-exact staged seeds; the cheap TPU 1-mismatch equivalent is searching
+exact staged seeds; the cheap batched 1-mismatch equivalent is searching
 both exact halves of every seed (pigeonhole). This tool measures, on
 reads mutated at a given substitution rate (the reads deep DP actually
 sees: both ends >k mismatches):
